@@ -10,7 +10,7 @@ The driver's acceptance criterion (BASELINE.json) is test-AUC parity within
    the same ``--distribution_file`` init,
 4. reports both AUCs and the difference.
 
-Run: python benchmarks/auc_parity.py   (add QMF_TPU_PLATFORM=cpu to force CPU)
+Run: python benchmarks/auc_parity.py   (add JAX_PLATFORMS=cpu to force the CPU)
 """
 
 from __future__ import annotations

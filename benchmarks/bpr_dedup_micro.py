@@ -1,4 +1,4 @@
-"""Decision experiment for VERDICT r4 item 3: can sorting + segment-summing
+"""Decision experiment: can sorting + segment-summing
 the BPR item-update stream beat plain duplicate-index scatter-add?
 
 At ml20m BPR (B=32768, 3 negatives), each grouped-scan step scatters
@@ -11,7 +11,7 @@ unique rows) only wins if:
 
 All four left-hand stages are measured here against the right-hand baseline,
 plus the end-to-end composed variant, at the exact epoch shapes. Also
-measures the same set at bf16 storage (VERDICT's other unmeasured lever).
+measures the same set at bf16 storage.
 
 Usage: python -u benchmarks/bpr_dedup_micro.py
 """

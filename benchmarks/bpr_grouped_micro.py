@@ -1,4 +1,4 @@
-"""Microbenchmark: grouped BPR SGD step variants at ML-20M shapes (TPU).
+"""Microbenchmark: grouped BPR SGD step variants at ML-20M shapes.
 
 Usage: python -u benchmarks/bpr_grouped_micro.py [variant ...] [B=batch]
 Times 100-step lax.scan loops of the grouped minibatch step

@@ -1,4 +1,4 @@
-"""Sweep the WALS scan chunk size (batch_rows) at ml20m k=64 on TPU.
+"""Sweep the WALS scan chunk size (batch_rows) at ml20m k=64 on the GPU.
 
 Usage: python -u benchmarks/chunk_sweep.py [batch_rows ...]
 Default sweep: 8192 (production default), 65536, 100000000 (one-shot: every

@@ -76,21 +76,37 @@ PRESETS = {
 }
 
 
-def ensure_dataset(preset: str, cache_dir: str = "/tmp/qmf_bench_data") -> str:
-    """Generate (once) and return the path of a preset dataset file."""
+# Generated data lives inside the checkout (listed in .gitignore), so the
+# scripts read and write nothing outside it.
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".bench_data"
+)
+
+
+def _ensure_npz(preset: str, cache_dir: str) -> str:
+    """Generate (once) and return the path of a preset's arrays (.npz)."""
     os.makedirs(cache_dir, exist_ok=True)
-    path = os.path.join(cache_dir, f"{preset}.txt")
     npz = os.path.join(cache_dir, f"{preset}.npz")
-    if not os.path.exists(path):
+    if not os.path.exists(npz):
         users, items, values = generate(**PRESETS[preset], seed=42)
+        tmp = npz + ".tmp.npz"
+        np.savez(tmp, users=users, items=items, values=values)
+        os.replace(tmp, npz)
+    return npz
+
+
+def ensure_dataset(preset: str, cache_dir: str = DEFAULT_CACHE_DIR) -> str:
+    """Generate (once) and return the path of a preset's ratings text file
+    (the reference binaries' and the CLIs' input format)."""
+    path = os.path.join(cache_dir, f"{preset}.txt")
+    if not os.path.exists(path):
+        users, items, values = load_npz(preset, cache_dir)
         write_ratings(path, users, items, values)
-        np.savez(npz, users=users, items=items, values=values)
     return path
 
 
-def load_npz(preset: str, cache_dir: str = "/tmp/qmf_bench_data"):
-    ensure_dataset(preset, cache_dir)
-    d = np.load(os.path.join(cache_dir, f"{preset}.npz"))
+def load_npz(preset: str, cache_dir: str = DEFAULT_CACHE_DIR):
+    d = np.load(_ensure_npz(preset, cache_dir))
     return d["users"], d["items"], d["values"]
 
 

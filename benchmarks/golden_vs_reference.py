@@ -25,7 +25,7 @@ sys.path.insert(0, os.path.join(REPO, "benchmarks"))
 
 
 def main() -> int:
-    os.environ.setdefault("QMF_TPU_PLATFORM", "cpu")
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import datagen
     from qmf_tpu.cli import wals as wals_cli
     from qmf_tpu.cli import gen_uniform as gen_cli

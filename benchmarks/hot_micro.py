@@ -1,7 +1,7 @@
 """Hot/cold split feasibility micro: is head-dense + tail-gather faster?
 
-The WALS build is gather-issue-bound (~3.4 ns/row regardless of idiom,
-benchmarks/gather_micro.py). Item popularity is Zipf: the top-H hottest
+The WALS build pays per gathered factor row (benchmarks/gather_micro.py).
+Item popularity is Zipf: the top-H hottest
 columns of a side cover a large share of nnz (ml20m synthetic: top-1024
 items = 59%, top-4096 = 78%). This micro times the two halves of the
 proposed split build for one side:
@@ -9,10 +9,13 @@ proposed split build for one side:
   cold  — the existing class-scan gather+einsum build, on the dataset with
           hot columns REMOVED (fewer gathered rows AND less padding);
   hot   — per scan chunk, A += W_a (B,H) @ Z (H,k^2) and b += W_b @ Y_hot
-          (pure MXU GEMMs over a static dense weight matrix; the alpha*r
-          weights never change across epochs so W is built once at init).
+          (dense GEMMs over a static weight matrix; the alpha*r weights
+          never change across epochs so W is built once at init).
 
 Usage: python -u benchmarks/hot_micro.py [user|item] [H ...]
+       python -u benchmarks/hot_micro.py gemm [H ...]
+The "gemm" form times only the hot GEMM at the ml20m user side's padded
+row count and prints its rate: ops/hot.py's _GEMM_FLOPS.
 """
 
 import sys
@@ -41,13 +44,47 @@ BATCH_ROWS = 8192
 
 
 def timed(fn, *args):
-    out = fn(*args)
-    jax.tree_util.tree_map(lambda x: float(jnp.asarray(x).ravel()[0]), out)
-    t0 = time.time()
+    jax.block_until_ready(fn(*args))
+    t0 = time.perf_counter()
     for _ in range(REPS):
         out = fn(*args)
-    jax.tree_util.tree_map(lambda x: float(jnp.asarray(x).ravel()[0]), out)
-    return (time.time() - t0) / REPS
+    jax.block_until_ready(out)
+    return (time.perf_counter() - t0) / REPS
+
+
+def hot_gemm_fn(h):
+    def hot_gemm(w_a, w_b, y_hot):
+        yh = y_hot.astype(jnp.bfloat16)
+        z = (yh[:, :, None] * yh[:, None, :]).reshape(h, K * K)
+
+        def body(_, inp):
+            wa, wb = inp
+            a = jnp.matmul(wa, z, preferred_element_type=jnp.float32)
+            b = jnp.matmul(wb, yh, preferred_element_type=jnp.float32)
+            # row-sum keeps every GEMM output live without writing the
+            # (B, k^2) block to device memory — in production A_hot is added
+            # into the cold A accumulation in-fusion, so no extra A write
+            return None, (a.sum(axis=-1), b)
+
+        _, (a0, b) = jax.lax.scan(body, None, (w_a, w_b))
+        return a0, b
+
+    return jax.jit(hot_gemm)
+
+
+def gemm_only(hs):
+    """Rate of the hot GEMM alone at the ml20m user side's row count."""
+    n_rows = 138_496
+    steps = -(-n_rows // BATCH_ROWS)
+    key = jax.random.PRNGKey(0)
+    for h in hs:
+        w_a = jax.random.uniform(key, (steps, BATCH_ROWS, h), jnp.bfloat16)
+        w_b = w_a + 1
+        y_hot = 0.1 * jax.random.normal(key, (h, K), jnp.float32)
+        t = timed(hot_gemm_fn(h), w_a, w_b, y_hot)
+        flops = steps * BATCH_ROWS * h * (K * K + K) * 2
+        print(f"H={h:6d} hot gemm {t * 1e3:8.3f} ms  "
+              f"{flops / t / 1e12:7.2f} TFLOP/s", flush=True)
 
 
 def build_side_fn(eng, side="user"):
@@ -81,6 +118,9 @@ def build_side_fn(eng, side="user"):
 
 def main():
     side = sys.argv[1] if len(sys.argv) > 1 else "user"
+    if side == "gemm":
+        gemm_only([int(h) for h in sys.argv[2:]] or [1024, 2048, 4096])
+        return
     hs = [int(h) for h in sys.argv[2:]] or (
         [1024, 2048, 4096] if side == "user" else [4096, 8192, 16384]
     )
@@ -139,27 +179,7 @@ def main():
         )
         y_hot = yc[jnp.asarray(hot)]
 
-        def hot_gemm(w_a, w_b, y_hot):
-            yh = y_hot.astype(jnp.bfloat16)
-            z = (yh[:, :, None] * yh[:, None, :]).reshape(h, K * K)
-
-            def body(_, inp):
-                wa, wb = inp
-                a = jnp.matmul(
-                    wa, z, preferred_element_type=jnp.float32
-                )
-                b = jnp.matmul(
-                    wb, yh, preferred_element_type=jnp.float32
-                )
-                # row-sum keeps every GEMM output live without writing the
-                # (B, k^2) block to HBM — in production A_hot is added into
-                # the cold A accumulation in-fusion, so no extra A write
-                return None, (a.sum(axis=-1), b)
-
-            _, (a0, b) = jax.lax.scan(body, None, (w_a, w_b))
-            return a0, b
-
-        t_hot = timed(jax.jit(hot_gemm), w_a, w_b, y_hot)
+        t_hot = timed(hot_gemm_fn(h), w_a, w_b, y_hot)
         print(
             f"H={h:6d} cov={cov*100:5.1f}%  cold build {t_cold*1e3:7.1f} ms"
             f"  hot gemm {t_hot*1e3:6.1f} ms  total {(t_cold+t_hot)*1e3:7.1f}"

@@ -1,5 +1,4 @@
-"""Measure the wall-clock cost of one killed-worker recovery (VERDICT r4
-item 9).
+"""Measure the wall-clock cost of one killed-worker recovery.
 
 The multi-process fault-tolerance design (distributed/scheduler.py) pays
 for a mid-run worker loss with: failure detection (task_done rc!=0 or
@@ -32,7 +31,7 @@ sys.path.insert(0, ".")
 
 import numpy as np  # noqa: E402
 
-# virtual CPU mesh: the two workers cannot share the one real TPU chip
+# virtual CPU mesh: two JAX workers cannot share one card
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")

@@ -93,7 +93,7 @@ def main():
 
     if "build2" in sys.argv:
         # variant: pre-scale yg by w so the A einsum is a clean two-operand
-        # batched GEMM (bdk,bdl->bkl) that must hit the MXU
+        # batched GEMM (bdk,bdl->bkl) that must hit the tensor cores
         prec = als_ops._PRECISION_BY_NAME["default"]
 
         def build2_class(y, yty, col_idx, vals, mask, chunk_b):

@@ -1,4 +1,4 @@
-"""qmf_tpu — TPU-native implicit-feedback matrix factorization framework.
+"""qmf_tpu — implicit-feedback matrix factorization framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 C++ library taozhijiang/qmf (see SURVEY.md at the repo root):
@@ -6,8 +6,8 @@ C++ library taozhijiang/qmf (see SURVEY.md at the repo root):
 - WALS (weighted alternating least squares, Hu-Koren implicit feedback):
   the reference's per-row LAPACK ``dsysv_`` solves
   (reference: qmf/wals/WALSEngine.cpp:266-310) become degree-bucketed batched
-  Gramian accumulation (MXU einsums) feeding vmapped Cholesky solves over all
-  users/items at once.
+  Gramian accumulation (batched einsums) feeding batched Cholesky solves
+  over all users/items at once.
 - BPR (Bayesian personalized ranking): the reference's Hogwild! lock-free SGD
   (reference: qmf/bpr/BPREngine.cpp:146-176) becomes synchronous vectorized
   minibatch SGD with on-device negative sampling and segment-sum gradient
@@ -16,7 +16,7 @@ C++ library taozhijiang/qmf (see SURVEY.md at the repo root):
   two-key sorts on device (reference: qmf/metrics/Metrics.cpp).
 - Distribution: the reference's scheduler/labor TCP cluster (reference:
   distributed/) maps to SPMD sharding over a ``jax.sharding.Mesh`` with the
-  fixed factor side replicated/all-gathered over ICI, plus a thin task
+  fixed factor side replicated/all-gathered over NVLink, plus a thin task
   submission control plane.
 """
 

@@ -5,7 +5,7 @@
 // getline + sscanf, single-threaded) and its factor writer is C++ iostream
 // at fixed 9-decimal precision (qmf/Engine.cpp:98-122). This implementation
 // keeps the same text formats but parses with mmap + hand-rolled numeric
-// scanning parallelized across threads (the host here feeds a TPU, so the
+// scanning parallelized across threads (the host here feeds an accelerator, so the
 // loader must not be the bottleneck), and writes with a buffered
 // fixed-point formatter instead of iostreams.
 //

@@ -57,7 +57,9 @@ def make_flags() -> Flags:
         42,
         "random seed for generating evaluation set and test users",
     )
-    fl.define_integer("nthreads", 16, "reference compatibility; unused on TPU")
+    fl.define_integer(
+        "nthreads", 16, "reference compatibility; unused on the device"
+    )
     # datasets (reference qmf/bpr.cpp:48-49)
     fl.define_string("train_dataset", "", "filename of training dataset")
     fl.define_string("test_dataset", "", "filename of test dataset")
@@ -81,7 +83,7 @@ def make_flags() -> Flags:
     # model output (reference qmf/bpr.cpp:58-59)
     fl.define_string("user_factors", "", "filename of user factors")
     fl.define_string("item_factors", "", "filename of item factors")
-    # TPU-native extras
+    # device extras
     fl.define_string("dtype", "float32", "device compute dtype")
     fl.define_integer("batch_size", 8192, "triplets per device SGD step")
     fl.define_integer(
@@ -116,7 +118,7 @@ def main(argv=None) -> int:
     configure_platform()
     if fl.dtype == "float64":
         # f64 golden mode needs x64 or jnp silently downgrades every array
-        # to f32 (CPU-only: TPUs have no f64 linear algebra). Mirrors the
+        # to f32 (the device paths are f32). Mirrors the
         # distributed worker (worker.py run_worker).
         import jax
 

@@ -4,43 +4,48 @@ from __future__ import annotations
 
 import os
 
+# Fixed, checkout-relative default for the persistent compilation cache
+# (listed in .gitignore): a fixed path keeps cache keys stable across runs.
+_REPO = os.path.dirname(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+)
+DEFAULT_COMPILE_CACHE_DIR = os.path.join(_REPO, ".jax_cache")
+
 
 def configure_platform() -> None:
-    """Honor QMF_TPU_PLATFORM=cpu|tpu|... even when the surrounding
-    environment pinned JAX_PLATFORMS before interpreter start (some
-    deployments capture it in sitecustomize, making the env var a no-op)."""
-    platform = os.environ.get("QMF_TPU_PLATFORM")
-    if platform:
-        import jax
-
-        jax.config.update("jax_platforms", platform)
+    """Apply QMF_TPU_X64: full float64 mode, used for golden cross-checks
+    against the reference's f64 math (the fast device paths are f32). The
+    backend itself is chosen by JAX_PLATFORMS."""
     if os.environ.get("QMF_TPU_X64"):
-        # full float64 mode (CPU-only; TPUs have no f64 linear algebra) —
-        # used for golden cross-checks against the reference's f64 math
         import jax
 
         jax.config.update("jax_enable_x64", True)
 
 
-def enable_compilation_cache() -> None:
-    """Enable jax's persistent compilation cache for fast repeat CLI runs.
+def compilation_cache_dir() -> str | None:
+    """Where the persistent compilation cache lives, or None for none.
 
-    First XLA compilation of each program shape can take tens of seconds
-    (especially via a remote TPU compile service); the persistent cache makes
-    subsequent identical runs start instantly. Opt out with
-    QMF_TPU_NO_COMPILE_CACHE=1.
+    JAX_COMPILATION_CACHE_DIR, when set, is JAX's own setting and wins: no
+    other directory is set in code. Otherwise the cache sits at a fixed
+    directory inside the checkout. QMF_TPU_NO_COMPILE_CACHE=1 opts out.
     """
     if os.environ.get("QMF_TPU_NO_COMPILE_CACHE"):
+        return None
+    return (
+        os.environ.get("JAX_COMPILATION_CACHE_DIR")
+        or DEFAULT_COMPILE_CACHE_DIR
+    )
+
+
+def enable_compilation_cache() -> None:
+    """Enable jax's persistent compilation cache for fast repeat runs (the
+    first compile of each program shape can take tens of seconds)."""
+    cache_dir = compilation_cache_dir()
+    if cache_dir is None:
         return
     import jax
 
-    cache_dir = os.environ.get(
-        "QMF_TPU_COMPILE_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "qmf_tpu_xla"),
-    )
-    try:
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         os.makedirs(cache_dir, exist_ok=True)
         jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:  # cache is best-effort
-        pass
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)

@@ -3,7 +3,7 @@
 Beyond-reference capability (the reference stops at saving factor files,
 qmf/Engine.cpp:98-122; serving is left to the caller): load the text
 factor files a training run produced, score every requested user against
-the full catalog as one MXU matmul, and emit the top-N items per user —
+the full catalog as one matmul, and emit the top-N items per user —
 optionally excluding items the user already interacted with in a
 ratings file (the reference's dataset text format).
 

@@ -11,7 +11,7 @@ verbatim, e.g.::
 Reference-flow parity (qmf/wals.cpp:52-106): build metrics engine from
 ``--test_avg_metrics``, init from train data, init test data, optimize,
 save factors. ``--nthreads`` is accepted for compatibility; parallelism on
-TPU comes from batching/sharding, not a thread pool.
+the device comes from batching/sharding, not a thread pool.
 """
 
 from __future__ import annotations
@@ -45,7 +45,8 @@ def make_flags() -> Flags:
     fl.define_integer(
         "nthreads",
         16,
-        "accepted for reference compatibility; on TPU parallelism comes from "
+        "accepted for reference compatibility; on the device parallelism "
+        "comes from "
         "batched device programs",
     )
     # datasets (reference qmf/wals.cpp:37-38)
@@ -72,12 +73,14 @@ def make_flags() -> Flags:
     # model output (reference qmf/wals.cpp:49-50)
     fl.define_string("user_factors", "", "filename of user factors")
     fl.define_string("item_factors", "", "filename of item factors")
-    # TPU-native extras
+    # device extras
     fl.define_string("dtype", "float32", "device compute dtype")
     fl.define_string(
         "solver",
         "auto",
-        "per-row solver: cholesky | pallas (fused TPU kernel) | lu | auto (pallas on f32 accelerators, cholesky elsewhere)",
+        "per-row solver: auto | cholesky | cholesky_xla | cholesky_matmul | "
+        "schur | lu (auto: cholesky_xla for f32 on the GPU, cholesky "
+        "elsewhere)",
     )
     fl.define_integer("batch_rows", 4096, "max rows per device solve batch")
     fl.define_string(
@@ -89,7 +92,7 @@ def make_flags() -> Flags:
     fl.define_string(
         "matmul_precision",
         "highest",
-        "MXU precision for normal-equation builds: highest | default (bf16)",
+        "matmul precision for normal-equation builds: highest | default (bf16)",
     )
     fl.define_integer(
         "init_seed", 0, "seed for random item-factor init (reference uses "
@@ -112,7 +115,7 @@ def main(argv=None) -> int:
     configure_platform()
     if fl.dtype == "float64":
         # f64 golden mode needs x64 or jnp silently downgrades every array
-        # to f32 (CPU-only: TPUs have no f64 linear algebra). Mirrors the
+        # to f32 (the device paths are f32). Mirrors the
         # distributed worker (worker.py run_worker).
         import jax
 

@@ -8,8 +8,8 @@ of the reference can carry over hyperparameters unchanged:
 - ``BPRConfig``     — reference qmf/bpr/BPREngine.h:38-51 and qmf/bpr.cpp:28-44.
 - ``MetricsConfig`` — reference qmf/metrics/MetricsEngine.h:29-33.
 
-TPU-specific additions (dtype/solver/batching knobs) are grouped at the end of
-each dataclass and have safe defaults.
+Device-side additions (dtype/solver/batching knobs) are grouped at the end
+of each dataclass and have safe defaults.
 """
 
 from __future__ import annotations
@@ -31,28 +31,25 @@ class WALSConfig:
     # across implementations (reference qmf/FactorData.h:74-100).
     distribution_file: str = ""
 
-    # --- TPU-native knobs (no reference equivalent) ---
-    # Computation dtype on device. float32 is the TPU-native choice; the
+    # --- device knobs (no reference equivalent) ---
+    # Computation dtype on device. float32 is the accelerator choice; the
     # reference computes in float64 on CPU (qmf/Types.h:24).
     dtype: str = "float32"
-    # "auto" resolves per backend: the fused single-pass Pallas factor+solve
-    # kernel on an f32 accelerator (ml20m k=64 epoch ~0.199 s vs ~0.29 s
-    # XLA, AUC parity |diff| 1.3e-04 at the production config —
-    # benchmarks/README.md; on meshes the kernel runs per-shard via
-    # shard_map), the unrolled blocked XLA Cholesky on CPU / f64 (Pallas
-    # TPU has no f64). Explicit choices: "cholesky" (blocked XLA SPD
-    # factor+solve), "pallas", "fused" (whole-class Pallas build+factor+
-    # solve — correct but measured slower than the split path at ml20m,
-    # see benchmarks/README.md), "schur" (recursive explicit SPD inverse),
-    # "cholesky_matmul" (matmul-panel substitutions), or "lu" (general
-    # symmetric, matches dsysv_'s tolerance of indefinite systems).
+    # "auto" resolves per backend (utils/platform.py): "cholesky_xla" for
+    # f32 on the GPU (the fastest solve per ml20m epoch on the card; PERF.md
+    # "Solve kernel vs XLA"), the unrolled blocked XLA Cholesky on the CPU
+    # and for f64.
+    # Explicit choices: "cholesky" (blocked XLA SPD factor+solve),
+    # "cholesky_xla" (jnp.linalg.cholesky + triangular solves), "schur"
+    # (recursive explicit SPD inverse), "cholesky_matmul" (matmul-panel
+    # substitutions), or "lu" (general symmetric, matches dsysv_'s
+    # tolerance of indefinite systems).
     solver: str = "auto"
     # Max rows per solve bucket on device; bounds compile count and memory.
     batch_rows: int = 4096
-    # MXU matmul precision for the normal-equation builds: "highest" (full
-    # f32 effective precision) or "default" (single-pass bf16 inputs with
-    # f32 accumulation; several-fold faster, ~1e-3 relative error that WALS
-    # absorbs). The Cholesky solve always runs in f32.
+    # Matmul precision for the normal-equation builds: "highest" (full
+    # f32) or "default" (bf16 inputs with f32 accumulation, ~1e-3 relative
+    # error that WALS absorbs). The Cholesky solve always runs in f32.
     matmul_precision: str = "highest"
     # Run each epoch (both half-epochs) as one fused device program — one
     # dispatch + one host sync per epoch. Disable to dispatch per width
@@ -79,28 +76,26 @@ class WALSConfig:
     # Build the degree-class arrays on device (ops/device_pack.py): transfer
     # the raw 12-byte/rating COO once and sort + pad on the accelerator,
     # instead of building ~2x larger padded arrays in host numpy and
-    # transferring those. "auto" enables it for float32 runs on non-CPU
-    # backends; True/False force it.
+    # transferring those. "auto" enables it for float32 runs on the GPU
+    # (utils/platform.py); True/False force it.
     device_pack: bool | str = "auto"
     # Hot/cold split build (ops/hot.py): the contribution of each side's H
-    # hottest fixed-side columns rides dense MXU GEMMs against static
+    # hottest fixed-side columns rides dense GEMMs against static
     # per-row weight matrices instead of per-entry factor-row gathers
-    # (random gathers cost ~3.4 ns/row here regardless of width, so the
-    # power-law head dominates the build). "auto" picks H per side from
-    # the degree-distribution cost model on f32 accelerator runs (0 when a
-    # flat distribution wouldn't pay, 0 on CPU/f64 golden runs); an int
-    # forces the same H on both sides; 0 disables.
+    # (random gathers cost per gathered row, so the power-law head can
+    # dominate the build). "auto" picks H per side from the
+    # degree-distribution cost model on f32 GPU runs (0 when the model says
+    # it wouldn't pay, 0 on CPU/f64 golden runs); an int forces the same H
+    # on both sides; 0 disables.
     hot_width: int | str = "auto"
     # Bound compiled program shapes: at most max_width_classes width
     # classes remain per side (0 = no cap) — the pairs whose merge adds the
     # least padding (rows * width gap) merge first, which preferentially
-    # removes sparse classes. Every distinct width is a compiled shape
-    # (~30-140 s warmup each through a remote compile service — BENCH_r03
-    # measured 665 s of ml20m warmup at 43 classes; 12 classes/side cut it
-    # to ~315 s with init 168 s -> 86 s). min_class_nnz_frac > 0 adds an
+    # removes sparse classes. Every distinct width is a compiled shape, so
+    # the cap bounds warm-up (compile) time. min_class_nnz_frac > 0 adds an
     # unconditional nnz-share merge rule; it is OFF by default because it
-    # ignores padding cost (measured: it pushed ml20m's smallest item class
-    # from width 8 to 128, +3.8M padded gather rows per epoch).
+    # ignores padding cost (it pushed ml20m's smallest item class from
+    # width 8 to 128, +3.8M padded gather rows per epoch).
     max_width_classes: int = 12
     min_class_nnz_frac: float = 0.0
 
@@ -126,7 +121,7 @@ class BPRConfig:
     num_hogwild_threads: int = 1
     shuffle_training_set: bool = True
 
-    # --- TPU-native knobs ---
+    # --- device knobs ---
     dtype: str = "float32"
     # Triplets per device step. Plays the role Hogwild's concurrency played:
     # updates within a batch read the same (pre-batch) parameters, like
@@ -136,18 +131,17 @@ class BPRConfig:
     # user's positive set (reference rejection loop BPREngine-inl.h:48-60).
     neg_resample_rounds: int = 4
     # Statically unroll the membership binary search instead of running it
-    # as a fori_loop (faster; opt-in while a historical TPU-runtime crash
-    # with the unrolled form is being re-validated).
+    # as a fori_loop (opt-in: the unrolled form crashed the accelerator
+    # runtime this code was first written for; not yet re-validated).
     unroll_membership: bool = False
     # Memory budget (MB) for the dense packed (user, item) membership
     # bitmap used by the hot negative sampler: ONE random gather per
-    # candidate instead of ~log2(max_degree) chained binary-search gathers
-    # (measured 6x sampler speedup at ml20m), and the enabler of the
-    # shared-word sampler. The bitmap lives in device HBM (sparse-built
-    # on device, so host/transfer cost scales with nnz not U*I); 4 GB
-    # covers ~34G (user, item) cells — e.g. 200k x 100k catalogs with
-    # room to spare on a 16 GB chip. Above the budget (U*I/8 bytes) the
-    # sampler falls back to blocked-Bloom membership + exact CSR verify.
+    # candidate instead of ~log2(max_degree) chained binary-search gathers,
+    # and the enabler of the shared-word sampler. The bitmap lives in device
+    # memory (sparse-built on device, so host/transfer cost scales with nnz
+    # not U*I); 4 GB covers ~34G (user, item) cells — e.g. 200k x 100k
+    # catalogs. Above the budget (U*I/8 bytes) the sampler falls back to
+    # blocked-Bloom membership + exact CSR verify.
     bitmap_budget_mb: int = 4096
     # Grouped packed epochs (one scan row per positive, negatives
     # reconstructed from 2-bit round indices — ops/bpr_ops.py
@@ -162,8 +156,9 @@ class BPRConfig:
     # Item-side scatter strategy for the grouped scan's 1+num_neg B-row
     # updates per step. "seq": sequential scatter-adds on the live table
     # (the conservatively-stable default). "merged": one wide
-    # (1+num_neg)*B-row scatter (kernel-faulted one TPU runtime
-    # generation; retestable). "dense": segment-sum the update stream into
+    # (1+num_neg)*B-row scatter (kernel-faulted the accelerator runtime
+    # this code was first written for; retestable). "dense": segment-sum
+    # the update stream into
     # a fresh zeroed (n_items, k) accumulator and add it densely — the
     # scatter stops read-modify-writing the live factor table, removing
     # its serialization against the next step's gathers (measured A/B in
@@ -174,8 +169,8 @@ class BPRConfig:
     # is available. "word": each positive ROW gathers ONE bitmap word; slot
     # j's probe rounds r < R-1 test spread-out bits of that word
     # (distinct-mod-32 offsets per slot/round) and round R-1 is a fresh
-    # unchecked candidate — one-word-per-row presampling, ~2x faster at
-    # ML-20M (random-gather cost is per gathered ROW here, and this removes
+    # unchecked candidate — one-word-per-row presampling (random-gather
+    # cost is per gathered ROW, and this removes
     # the where-compaction + per-round gathers + 2/3 of the word-gather
     # rows; benchmarks/bpr_presample_micro.py), with residual
     # positive-candidate probability ~p^2 vs p^R. "rounds": the compacted

@@ -3,7 +3,7 @@
 Re-design of the reference Labor (reference distributed/labor/Labor.cpp).
 The reference labor was the compute worker: it received the full dataset
 and fixed factors over TCP and solved 10k-row buckets (Labor.cpp:197-405).
-In the TPU design the compute workers are accelerator chips driven by SPMD
+In this design the compute workers are accelerator cards driven by SPMD
 programs; a *labor process* is a per-host agent whose jobs are:
 
 - liveness: attach (kAttachLabor analog, Labor.cpp:105-143) and answer

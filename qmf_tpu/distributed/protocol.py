@@ -4,7 +4,7 @@ Replaces the reference's hand-rolled binary protocol (reference
 distributed/common/Message.h:40-160: packed 40-byte head with big-endian
 ints + raw struct payloads, same-architecture assumption). Re-design
 rationale: the bulk payloads that justified raw-memory framing (dataset and
-factor broadcasts) moved to the ICI data plane (see
+factor broadcasts) moved to the device interconnect (NVLink) data plane (see
 qmf_tpu/parallel/sharded_wals.py), so the control plane carries only small
 control messages — JSON frames are architecture-independent and
 debuggable.

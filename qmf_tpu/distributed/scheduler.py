@@ -1,11 +1,11 @@
 """Scheduler: job-queue daemon for distributed WALS training.
 
-TPU-native re-design of the reference Scheduler + RunOneTask (reference
+Device-side re-design of the reference Scheduler + RunOneTask (reference
 distributed/scheduler/Scheduler.cpp, RunOneTask.cpp). What changed and why:
 
 - The reference scheduler was also the data plane: it broadcast the dataset
   and fixed factors over TCP and scattered 10k-row buckets to labors
-  (RunOneTask.cpp:91-150). Here the data plane is SPMD over the TPU mesh
+  (RunOneTask.cpp:91-150). Here the data plane is SPMD over the device mesh
   (qmf_tpu/parallel/) — compute never leaves the accelerators — so the
   scheduler keeps only the control plane: task queue, labor liveness,
   status, and failure recovery.
@@ -42,8 +42,9 @@ distributed/scheduler/Scheduler.cpp, RunOneTask.cpp). What changed and why:
 from __future__ import annotations
 
 import asyncio
+import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 from qmf_tpu.distributed import protocol
 from qmf_tpu.distributed.taskdef import TaskDef, load_taskdef, parse_taskdef
@@ -367,10 +368,11 @@ class Scheduler:
     async def _run_local(self, td: TaskDef, taskid: int) -> Dict[str, Any]:
         """Single-process task execution. With the real runner this spawns a
         fresh worker SUBPROCESS (num_processes=1): the long-lived daemon
-        must never initialize the accelerator in-process — libtpu holds the
-        chips exclusively for the process lifetime, which would permanently
-        starve every later multi-process attempt's process-0 worker of the
-        device. Injected runners (tests) still run in-thread."""
+        must never initialize the accelerator in-process — a JAX process
+        reserves most of a card's memory when it first touches it and keeps
+        it for its lifetime, so every later worker pinned to that card
+        would fail for want of memory. Injected runners (tests) still run
+        in-thread."""
         if self._runner is run_task:
             result = await run_worker_subprocess(
                 td,
@@ -483,6 +485,10 @@ class Scheduler:
             coord_port = s.getsockname()[1]
         coordinator = f"{self.coordinator_host}:{coord_port}"
         num_processes = 1 + len(ready)
+        check_local_quorum(
+            1 + sum(_is_local_peer(p, self.coordinator_host) for p in ready),
+            self.n_local_devices,
+        )
         log.info(
             "task %d: starting %d-process run (coordinator %s, labors %s)",
             taskid,
@@ -609,6 +615,64 @@ class Scheduler:
                 self._drop_labor(peer)
 
 
+def visible_cards(environ: Optional[Dict[str, str]] = None) -> List[str]:
+    """The NVIDIA cards this host exposes to a child process, found without
+    opening them (the daemon and labor agents stay off the accelerator):
+    the CUDA_VISIBLE_DEVICES list when set, else the /dev/nvidia<N> nodes."""
+    import re
+
+    env = os.environ if environ is None else environ
+    listed = env.get("CUDA_VISIBLE_DEVICES")
+    if listed is not None:
+        return [c.strip() for c in listed.split(",") if c.strip()]
+    try:
+        nodes = os.listdir("/dev")
+    except OSError:
+        return []
+    return sorted(
+        (n[len("nvidia"):] for n in nodes if re.fullmatch(r"nvidia\d+", n)),
+        key=int,
+    )
+
+
+def _is_local_peer(peer: str, coordinator_host: str) -> bool:
+    host = peer.rsplit(":", 1)[0]
+    return host in ("127.0.0.1", "localhost", "::1", coordinator_host)
+
+
+def check_local_quorum(n_local_processes: int, n_local_devices: int,
+                       cards: Optional[List[str]] = None) -> None:
+    """Refuse a run that puts more worker processes on this host than it
+    has cards: a JAX process reserves most of its card's memory, so two
+    workers cannot share one. Virtual-CPU workers need no card."""
+    if n_local_devices:
+        return
+    cards = visible_cards() if cards is None else cards
+    if cards and n_local_processes > len(cards):
+        raise RuntimeError(
+            f"{n_local_processes} worker processes on this host but only "
+            f"{len(cards)} cards: each worker needs a card of its own"
+        )
+
+
+def worker_env(process_id: int, n_local_devices: int,
+               environ: Optional[Dict[str, str]] = None) -> Dict[str, str]:
+    """The environment for worker ``process_id``: pinned to one card.
+
+    Each worker sees exactly one card (CUDA_VISIBLE_DEVICES), chosen from
+    this host's visible cards by process id, so co-located workers never
+    open the same card. Virtual-CPU workers (n_local_devices > 0) and
+    hosts without cards get the environment unchanged.
+    """
+    env = dict(os.environ if environ is None else environ)
+    if n_local_devices:
+        return env
+    cards = visible_cards(env)
+    if cards:
+        env["CUDA_VISIBLE_DEVICES"] = cards[process_id % len(cards)]
+    return env
+
+
 async def run_worker_subprocess(
     td: TaskDef,
     taskid: int,
@@ -667,6 +731,7 @@ async def run_worker_subprocess(
         *cmd,
         stdout=asyncio.subprocess.PIPE,
         stderr=asyncio.subprocess.STDOUT,
+        env=worker_env(process_id, n_local_devices),
     )
     if proc_holder is not None:
         proc_holder["proc"] = proc

@@ -35,7 +35,7 @@ class TaskDef:
     train_set: str = ""
     user_factors: str = ""
     item_factors: str = ""
-    # TPU-native extensions (absent from the reference proto; reference task
+    # device extensions (absent from the reference proto; reference task
     # files parse unchanged, these just keep their defaults)
     dtype: str = "float32"
     solver: str = "cholesky"

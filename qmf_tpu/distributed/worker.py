@@ -2,7 +2,7 @@
 
 This is the compute role the reference's Labor played
 (reference distributed/labor/Labor.cpp:326-405: receive dataset + fixed
-factors, solve 10k-row buckets, send rows back). TPU-native redesign: every
+factors, solve 10k-row buckets, send rows back). Redesign: every
 participating process joins ONE jax.distributed rendezvous and co-executes
 the SAME sharded SPMD program (qmf_tpu/parallel/engine.py) over the global
 device mesh — the scheduler process's worker is process 0, each labor host

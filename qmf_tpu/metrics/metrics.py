@@ -1,6 +1,6 @@
 """Vectorized ranking/regression metrics (MSE, AUC, AP, P@k, R@k).
 
-TPU-native replacement for the reference's per-user metric loops
+Vectorized device replacement for the reference's per-user metric loops
 (qmf/metrics/Metrics.cpp): every metric computes for all test users at once
 as one device program — a two-key sort (score descending, positives first on
 ties, matching the reference's ``std::greater<pair<Double,bool>>``

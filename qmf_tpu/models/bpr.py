@@ -1,6 +1,6 @@
 """BPR training engine (Bayesian Personalized Ranking).
 
-TPU-native re-design of the reference ``BPREngine``
+Device-side re-design of the reference ``BPREngine``
 (qmf/bpr/BPREngine.{h,cpp,-inl.h}):
 
 - ``init`` (reference BPREngine.cpp:65-105): keep elements with value >= 1.0
@@ -209,7 +209,7 @@ class BPREngine(Engine):
                 [self._data_items, np.zeros(pad, np.int32)]
             ) if pad else self._data_items
             # interleaved [user, item] rows: the epoch shuffle is then ONE
-            # row gather (random-gather cost is per ROW on this hardware)
+            # row gather (random-gather cost is per gathered ROW)
             self._grp_up = jnp.asarray(
                 np.stack(
                     [gu.astype(np.int32), gi.astype(np.int32)], axis=1
@@ -287,9 +287,9 @@ class BPREngine(Engine):
         # fixed seeded train eval set (reference BPREngine.cpp:84-87).
         # Negatives are rejection-sampled ON DEVICE (16 rounds ~= exact):
         # no 100s-of-MB host->device triplet transfer, no host loop.
-        # NOTE: the 16-round CSR rejection program kernel-faults this TPU
-        # runtime at MovieLens-20M scale when dispatched in one piece (the
-        # fault surfaces at the NEXT sync, not here — bpr_crash_bisect.py);
+        # NOTE: the 16-round CSR rejection program kernel-faulted the
+        # runtime this code was first written for at MovieLens-20M scale
+        # when dispatched in one piece (the fault surfaced at the NEXT sync);
         # use the O(1) bitmap membership when available and chunk the CSR
         # fallback into bounded dispatches.
         ev_u = jnp.repeat(

@@ -1,8 +1,8 @@
 """Serving-side top-N recommendation from trained factors.
 
 The reference stops at saving factor files; serving is left to the caller.
-This module closes that gap TPU-natively: score = bias + <p_u, q_i> as one
-MXU matmul over a batch of users, ``jax.lax.top_k`` for the head, and an
+This module closes that gap on the device: score = bias + <p_u, q_i> as one
+matmul over a batch of users, ``jax.lax.top_k`` for the head, and an
 optional exclusion of already-seen items (scores pushed to -inf via the
 same CSR positive-set structure BPR uses for membership).
 """

@@ -1,6 +1,6 @@
 """WALS training engine (weighted ALS, Hu/Koren/Volinsky implicit feedback).
 
-TPU-native re-design of the reference ``WALSEngine``
+Device-side re-design of the reference ``WALSEngine``
 (qmf/wals/WALSEngine.{h,cpp}):
 
 - ``init``: builds sorted-id indices and degree-bucketed padded batches for
@@ -37,6 +37,7 @@ from qmf_tpu.ops.packing import (
     pack_width_classes,
     packed_stats,
 )
+from qmf_tpu.utils import platform
 from qmf_tpu.utils.logging import log
 
 
@@ -98,24 +99,15 @@ class WALSEngine(Engine):
         return self.item_index.size if self.item_index else 0
 
     def _auto_solver(self) -> str:
-        """Resolve solver="auto": the fused single-pass Pallas kernel on an
-        f32 accelerator backend (no f64 on Pallas TPU; interpret-only on
-        CPU), the batched blocked Cholesky everywhere else. The sharded
-        engine resolves the same way and runs the kernel per-shard via
-        shard_map (als_ops._solve_dispatch with spmd set)."""
-        if self.dtype == jnp.float32 and jax.default_backend() != "cpu":
-            return "pallas"
-        return "cholesky"
+        """Resolve solver="auto" through the backend policy
+        (utils/platform.py); the sharded engine resolves the same way."""
+        return platform.auto_solver(self.dtype)
 
     def _use_device_pack(self) -> bool:
-        """Resolve the device_pack="auto" knob: on for f32 accelerator runs
-        (where the COO transfer + on-device sort beats shipping padded
-        arrays); off on CPU (no transfer to save) and for f64 golden runs."""
+        """Resolve the device_pack="auto" knob (utils/platform.py)."""
         dp = self.config.device_pack
         if dp == "auto":
-            return (
-                self.dtype == jnp.float32 and jax.default_backend() != "cpu"
-            )
+            return platform.auto_device_pack(self.dtype)
         return bool(dp)
 
     def _resolve_hot_width(self, col_degrees: np.ndarray,
@@ -123,7 +115,7 @@ class WALSEngine(Engine):
         """Resolve the hot_width knob for one side's build (0 = no split)."""
         hw = self.config.hot_width
         if hw == "auto":
-            if self.dtype != jnp.float32 or jax.default_backend() == "cpu":
+            if not platform.auto_hot_split(self.dtype):
                 return 0
             return hot_ops.auto_hot_width(
                 col_degrees, n_build_rows, self.config.nfactors,
@@ -151,7 +143,7 @@ class WALSEngine(Engine):
         Returns (class_arrays, plans, hot_state). With ``h > 0`` the side's
         packed stream carries only entries whose column is OUTSIDE the top-h
         hot set; the hot entries become static dense per-row weight matrices
-        (ops/hot.py) and ride MXU GEMMs in the build instead of gathers.
+        (ops/hot.py) and ride GEMMs in the build instead of gathers.
         """
         from qmf_tpu.ops import device_pack
 
@@ -268,7 +260,7 @@ class WALSEngine(Engine):
         # solve_bucket's whitelist.
         if cfg.solver not in (
             "auto", "cholesky", "cholesky_matmul", "schur", "cholesky_xla",
-            "pallas", "fused", "lu",
+            "lu",
         ):
             raise ValueError(f"unknown WALS solver {cfg.solver!r}")
         if cfg.matmul_precision not in ("highest", "default"):
@@ -565,8 +557,9 @@ class WALSEngine(Engine):
         equations on pathologically conditioned inputs — e.g. massive
         duplicate (user, item) multiplicity summing thousands of
         confidence terms into one rank-1 direction (measured: such a
-        dataset NaNs on TPU while f64/CPU is fine). Fail loudly with the
-        remediation options instead of silently saving NaN factors.
+        dataset NaNs in f32 on the device while f64/CPU is fine). Fail
+        loudly with the remediation options instead of silently saving NaN
+        factors.
         """
         if not np.isfinite(loss):
             raise FloatingPointError(

@@ -1,6 +1,6 @@
 """Device-side batched weighted-ALS math.
 
-This is the TPU-native replacement for the reference's hot loop
+This is the batched device replacement for the reference's hot loop
 (qmf/wals/WALSEngine.cpp:266-310): for each row u with observed signals
 (j, r_uj), solve the Hu-Koren normal equations
 
@@ -10,10 +10,10 @@ This is the TPU-native replacement for the reference's hot loop
 The reference builds A_u with scalar loops and calls LAPACK ``dsysv_`` per
 row; here a whole degree-bucket of rows is processed at once:
 
-- the Gramian ``YtY`` is one k x k matmul on the MXU (replacing the
+- the Gramian ``YtY`` is one k x k matmul (replacing the
   deliberately racy OpenMP accumulation, reference WALSEngine.cpp:246-264,
   with an exact reduction);
-- per-row A build is a batched einsum (batch matmul on the MXU);
+- per-row A build is a batched einsum (batched matmul);
 - all solves in a bucket run as one batched Cholesky (or LU) factorization.
 
 The per-row loss matches the reference exactly (WALSEngine.cpp:289-304):
@@ -32,34 +32,30 @@ from typing import List, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import PartitionSpec as P
 
 from qmf_tpu.ops.packing import Bucket
 
-# Matmul precision for f32 inputs on TPU. HIGHEST = full f32 effective
-# precision on the MXU (bf16x6 passes); needed for loss/AUC parity with the
-# reference's f64 CPU math.
+# Matmul precision for f32 inputs. HIGHEST = full f32 (no TF32 rounding on
+# the GPU); needed for loss/AUC parity with the reference's f64 CPU math.
 _PRECISION = jax.lax.Precision.HIGHEST
 
 
 def gramian(y: jax.Array) -> jax.Array:
-    """YtY as one MXU matmul (exact; replaces reference computeXtX)."""
+    """YtY as one matmul (exact; replaces reference computeXtX)."""
     return jnp.matmul(y.T, y, precision=_PRECISION)
 
 
 def _solve_spd(a: jax.Array, b: jax.Array) -> jax.Array:
-    """Batched SPD solve via the unrolled blocked Cholesky (ops/linalg.py).
-
-    ~3x faster than the XLA cholesky/triangular_solve kernels at WALS
-    shapes, identical accuracy.
-    """
+    """Batched SPD solve via the unrolled blocked Cholesky (ops/linalg.py):
+    solver="cholesky", the CPU and float64 path."""
     from qmf_tpu.ops import linalg
 
     return linalg.solve_spd(a, b)
 
 
 def _solve_spd_xla(a: jax.Array, b: jax.Array) -> jax.Array:
-    """Batched SPD solve via XLA's stock kernels (comparison/fallback)."""
+    """Batched SPD solve via XLA's own Cholesky + triangular solves
+    (cuSOLVER on the GPU): solver="cholesky_xla", the GPU default."""
     chol = jnp.linalg.cholesky(a)
     z = jax.lax.linalg.triangular_solve(
         chol, b[..., None], left_side=True, lower=True
@@ -75,13 +71,6 @@ def _solve_lu(a: jax.Array, b: jax.Array) -> jax.Array:
     return jnp.linalg.solve(a, b[..., None])[..., 0]
 
 
-def _solve_pallas(a: jax.Array, b: jax.Array) -> jax.Array:
-    """Batched SPD solve via the fused Pallas factor+solve kernel."""
-    from qmf_tpu.ops import pallas_solve
-
-    return pallas_solve.solve_spd(a, b)
-
-
 @functools.partial(jax.jit, static_argnames=("solver",))
 def solve_bucket(
     y: jax.Array,  # (n_cols, k) fixed-side factors
@@ -95,21 +84,18 @@ def solve_bucket(
 ) -> Tuple[jax.Array, jax.Array]:
     """Solve one padded bucket of rows. Returns (x (B,k), loss (B,))."""
     if solver not in (
-        "cholesky", "cholesky_matmul", "schur", "cholesky_xla", "pallas",
-        "lu",
+        "cholesky", "cholesky_matmul", "schur", "cholesky_xla", "lu",
     ):
-        # ("fused" is not a per-bucket solver: it replaces build+solve at
-        # side granularity — see _solve_side)
         raise ValueError(f"unknown solver: {solver}")
     return _solve_bucket_body(y, yty, col_idx, values, mask, alpha, lam, solver)
 
 
 _PRECISION_BY_NAME = {
-    # full f32 effective precision on the MXU (multi-pass bf16)
+    # full f32 products and sums (no TF32)
     "highest": jax.lax.Precision.HIGHEST,
-    # single-pass bf16 inputs with f32 accumulation: ~3-6x more MXU
-    # throughput at ~1e-3 relative error on A/b — ALS is robust to it
-    # (option mirrors what large-scale TPU factorization uses in practice)
+    # the builds cast their operands to bf16 explicitly (see
+    # _build_bucket): bf16 products, f32 accumulation, ~1e-3 relative
+    # error on A/b — ALS is robust to it
     "default": jax.lax.Precision.DEFAULT,
 }
 
@@ -117,9 +103,9 @@ _PRECISION_BY_NAME = {
 def hot_tables(y_hot: jax.Array, precision: str):
     """Per-side precompute for the hot-column dense build: the rank-1
     "outer-product table" Z (H, k*k) with Z[h] = vec(y_h y_h^T), plus the
-    cast fixed-side hot rows. One tiny VPU pass per half-epoch; the GEMM
-    ``W_a @ Z`` then reconstructs every row's hot normal-equation term
-    entirely on the MXU (see _build_bucket)."""
+    cast fixed-side hot rows. One tiny elementwise pass per half-epoch; the
+    GEMM ``W_a @ Z`` then reconstructs every row's hot normal-equation term
+    entirely on the tensor cores (see _build_bucket)."""
     if precision == "default" and y_hot.dtype == jnp.float32:
         yh = y_hot.astype(jnp.bfloat16)
     else:
@@ -139,7 +125,7 @@ def _flat_gather(y: jax.Array, col_idx: jax.Array) -> jax.Array:
 def _build_bucket(y, yty, col_idx, values, mask, alpha, lam, precision,
                   hot=None, y_hot=None, z=None):
     """Normal-equation build for one padded bucket: (A (B,k,k), b (B,k),
-    conf_sum (B,)) — the gather + MXU einsum stage, no solve.
+    conf_sum (B,)) — the gather + einsum stage, no solve.
 
     When ``hot`` is given, the bucket's rows additionally carry dense
     weights over the side's H hottest fixed columns (the power-law head):
@@ -147,9 +133,9 @@ def _build_bucket(y, yty, col_idx, values, mask, alpha, lam, precision,
     w_b = 1 + alpha*r (0 where unobserved; both static across epochs), and
     the hot contribution is two GEMMs — A += (w_a @ Z).reshape(B,k,k) and
     b += w_b @ y_hot — instead of per-entry factor-row gathers. Random row
-    gathers on this hardware cost ~3.4 ns/row regardless of width
-    (benchmarks/gather_micro.py), so moving the nnz-heavy head onto the MXU
-    is the difference between gather-issue-bound and compute-bound builds.
+    gathers cost per gathered row (benchmarks/gather_micro.py), so moving
+    the nnz-heavy head onto the tensor cores trades the head's gathers for
+    dense GEMM work (ops/hot.py's cost model decides how much).
     """
     prec = _PRECISION_BY_NAME.get(precision, jax.lax.Precision.HIGHEST)
     dtype = y.dtype
@@ -157,14 +143,11 @@ def _build_bucket(y, yty, col_idx, values, mask, alpha, lam, precision,
     w = alpha * values * maskf
     conf = maskf + w
     if precision == "default" and dtype == jnp.float32:
-        # DEFAULT-precision einsums round f32 operands to bf16 on the MXU
-        # anyway; casting BEFORE the gather is numerically the same rounding
-        # but halves the dominant HBM cost of the build — the (B, D, k)
-        # gathered-factor stream (measured BW-bound, benchmarks/
-        # stage_decomp.py). Accumulation stays f32. Indices are raveled
-        # before the gather: a flat 1-D row gather issues ~25% faster than
-        # the equivalent batched (B, D) gather at wide D on this chip
-        # (benchmarks/gather_micro.py "flat" idiom).
+        # "default" builds take bf16 operands; casting BEFORE the gather
+        # halves the build's largest device-memory stream — the (B, D, k)
+        # gathered-factor rows. Accumulation stays f32. Indices are raveled
+        # before the gather: one flat 1-D row gather instead of a batched
+        # (B, D) one (benchmarks/gather_micro.py "flat" idiom).
         yg = _flat_gather(y.astype(jnp.bfloat16), col_idx)
         b = jnp.einsum(
             "bd,bdk->bk",
@@ -207,7 +190,7 @@ def _build_bucket(y, yty, col_idx, values, mask, alpha, lam, precision,
     return a, b, conf_sum
 
 
-def _solve_dispatch(a, b, solver, spmd=None):
+def _solve_dispatch(a, b, solver):
     if solver == "cholesky":
         return _solve_spd(a, b)
     if solver == "cholesky_matmul":
@@ -220,19 +203,6 @@ def _solve_dispatch(a, b, solver, spmd=None):
         return linalg.solve_spd_schur(a, b)
     if solver == "cholesky_xla":
         return _solve_spd_xla(a, b)
-    if solver == "pallas":
-        if spmd is not None:
-            # pallas_call is not GSPMD-partitionable, but the batched solve
-            # has no cross-row dependency: shard_map runs one kernel per
-            # device on its (rows/n_dev, k, k) shard
-            mesh, axis = spmd
-            return jax.shard_map(
-                _solve_pallas,
-                mesh=mesh,
-                in_specs=(P(axis), P(axis)),
-                out_specs=P(axis),
-            )(a, b)
-        return _solve_pallas(a, b)
     if solver == "identity":
         # DEBUG-ONLY: x = b + A[:,0] (keeps A alive, skips the solve).
         # Exists so stage-decomposition benchmarks can isolate solve cost
@@ -258,13 +228,13 @@ def _loss_from_solution(x, b, conf_sum, lam):
 
 def _solve_bucket_body(
     y, yty, col_idx, values, mask, alpha, lam, solver, precision="highest",
-    hot=None, y_hot=None, z=None, spmd=None,
+    hot=None, y_hot=None, z=None,
 ):
     """Untraced body of solve_bucket (shared by the fused half-epoch)."""
     a, b, conf_sum = _build_bucket(
         y, yty, col_idx, values, mask, alpha, lam, precision, hot, y_hot, z
     )
-    x = _solve_dispatch(a, b, solver, spmd)
+    x = _solve_dispatch(a, b, solver)
     return x, _loss_from_solution(x, b, conf_sum, lam)
 
 
@@ -320,7 +290,7 @@ def _chunk_hot(hot_cls, n_chunks, chunk_b):
 
 def _scan_class(y, yty, row_ids, col_idx, values, mask, alpha, lam, x_out,
                 loss_in, solver, chunk_b, precision, hot_cls=None,
-                y_hot=None, z=None, spmd=None):
+                y_hot=None, z=None):
     """Scan one width class's chunks into (x_out, loss). Shared body."""
     n_chunks = row_ids.shape[0] // chunk_b
     d = col_idx.shape[1]
@@ -335,7 +305,7 @@ def _scan_class(y, yty, row_ids, col_idx, values, mask, alpha, lam, x_out,
         ids, col, val, m, hot = inp
         x, l = _solve_bucket_body(
             y, yty, col, val, m, alpha, lam, solver, precision, hot, y_hot,
-            z, spmd,
+            z,
         )
         x_acc = x_acc.at[ids].set(x, mode="drop")
         return (x_acc, loss + jnp.sum(l)), None
@@ -374,85 +344,21 @@ def _scan_class_build(y, yty, col_idx, values, mask, alpha, lam, chunk_b,
     )
 
 
-def _class_fused(y, ytyl, col_idx, values, mask, alpha, lam, precision,
-                 hot_cls=None, y_hot=None, z=None, spmd=None):
-    """One width class through the fused Pallas build+factor+solve kernel.
-
-    XLA does the gather (one write of the (N, D, k) stream) and the weight
-    arithmetic; the kernel consumes the stream ONCE and keeps every tile's
-    A entirely in VMEM — no (N, k, k) HBM materialization, no separate
-    solve pass (pallas_solve.build_solve). Hot/cold-split head weights ride
-    in-kernel GEMMs. Returns (x (N, k), loss (N,)).
-    """
-    from qmf_tpu.ops import pallas_solve
-
-    dtype = y.dtype
-    maskf = mask.astype(dtype)
-    w = alpha * values * maskf
-    conf = maskf + w
-    if precision == "default" and dtype == jnp.float32:
-        yg = _flat_gather(y.astype(jnp.bfloat16), col_idx)
-    else:
-        yg = _flat_gather(y, col_idx)
-    conf_sum = jnp.sum(conf, axis=1)
-    hot = None
-    if hot_cls is not None:
-        w_a, w_b, conf_hot = hot_cls
-        conf_sum = conf_sum + conf_hot
-        hot = (w_a, w_b)
-    ytyl_f32 = ytyl.astype(jnp.float32)
-    w32 = w.astype(jnp.float32)
-    conf32 = conf.astype(jnp.float32)
-    if spmd is not None:
-        # shard_map over the row axis: each device runs the kernel on its
-        # shard; the fixed-side stream is already gathered (row-aligned)
-        mesh, axis = spmd
-        row, rep = P(axis), P()
-        if hot is None:
-            x, b = jax.shard_map(
-                lambda yg_, w_, c_, yl_: pallas_solve.build_solve(
-                    yg_, w_, c_, yl_
-                ),
-                mesh=mesh,
-                in_specs=(row, row, row, rep),
-                out_specs=(row, row),
-            )(yg, w32, conf32, ytyl_f32)
-        else:
-            x, b = jax.shard_map(
-                lambda yg_, w_, c_, yl_, wa_, wb_, yh_, z_:
-                pallas_solve.build_solve(
-                    yg_, w_, c_, yl_, hot=(wa_, wb_), y_hot=yh_, z=z_
-                ),
-                mesh=mesh,
-                in_specs=(row, row, row, rep, row, row, rep, rep),
-                out_specs=(row, row),
-            )(yg, w32, conf32, ytyl_f32, hot[0], hot[1], y_hot, z)
-    else:
-        x, b = pallas_solve.build_solve(
-            yg, w32, conf32, ytyl_f32, hot=hot, y_hot=y_hot, z=z,
-        )
-    return x, _loss_from_solution(x, b, conf_sum, lam)
-
-
 def _solve_side(y, class_arrays, chunk_sizes, n_rows, alpha, lam, solver,
-                precision, class_solve=True, hot=None, spmd=None,
-                x_init=None):
+                precision, class_solve=True, hot=None, x_init=None):
     """All width classes of one side inside a single trace.
 
     class_solve=True (default) runs the three stages at SIDE granularity:
     per width class, a chunked BUILD scan (bounds gather/einsum working-set
     size) stacks that class's normal equations; the stacked (A, b) of ALL
     classes are then concatenated and factored+solved by ONE wide batched
-    Cholesky, and written back by ONE scatter. The solve's ~3k-op serial
-    dependency chain is latency-bound, so it must execute once per
-    half-epoch on a maximal-width batch, not once per scan step on narrow
-    ones (in-scan solving measured 162 ms/epoch of solve at ml20m k=64 vs a
-    210 ms no-solve floor; benchmarks/solver_sweep.py, wals_micro.py).
+    Cholesky, and written back by ONE scatter. The XLA solves' long serial
+    dependency chains are latency-bound, so they run once per half-epoch on
+    a maximal-width batch, not once per scan step on narrow ones.
     """
     yty = gramian(y)
     # callers may pass a pre-placed accumulator (e.g. row-sharded zeros) so
-    # donated next-epoch programs keep their compiled layout (sharded
-    # engines request solver="fused" through iterate_side_classes)
+    # donated next-epoch programs keep their compiled layout
     x_out = (
         x_init if x_init is not None
         else jnp.zeros((n_rows, y.shape[1]), dtype=y.dtype)
@@ -464,21 +370,6 @@ def _solve_side(y, class_arrays, chunk_sizes, n_rows, alpha, lam, solver,
     else:
         hot_classes = [None] * len(class_arrays)
         y_hot = z = None
-    if solver == "fused":
-        # whole-class fused Pallas build+factor+solve: the gathered stream
-        # is read once by the kernel and A never leaves VMEM
-        k = y.shape[1]
-        ytyl = yty + lam * jnp.eye(k, dtype=y.dtype)
-        for (row_ids, col_idx, values, mask), hot_cls in zip(
-            class_arrays, hot_classes
-        ):
-            x, l = _class_fused(
-                y, ytyl, col_idx, values, mask, alpha, lam, precision,
-                hot_cls, y_hot, z, spmd,
-            )
-            loss = loss + jnp.sum(l)
-            x_out = x_out.at[row_ids].set(x, mode="drop")
-        return x_out, loss
     if class_solve:
         parts = [
             _scan_class_build(
@@ -489,23 +380,11 @@ def _solve_side(y, class_arrays, chunk_sizes, n_rows, alpha, lam, solver,
                 class_arrays, chunk_sizes, hot_classes
             )
         ]
-        if solver == "pallas":
-            # the fused single-pass kernel has no latency-bound solve chain
-            # to amortize, so solving per width class skips the
-            # concatenated-A copy (one extra multi-GB HBM round-trip at
-            # ML-20M scale) the wide XLA solve needs
-            for (row_ids, *_), (a, b, conf_sum) in zip(class_arrays, parts):
-                x = _solve_dispatch(a, b, solver, spmd)
-                loss = loss + jnp.sum(
-                    _loss_from_solution(x, b, conf_sum, lam)
-                )
-                x_out = x_out.at[row_ids].set(x, mode="drop")
-            return x_out, loss
         a = jnp.concatenate([p[0] for p in parts], axis=0)
         b = jnp.concatenate([p[1] for p in parts], axis=0)
         conf_sum = jnp.concatenate([p[2] for p in parts], axis=0)
         row_ids = jnp.concatenate([c[0] for c in class_arrays], axis=0)
-        x = _solve_dispatch(a, b, solver, spmd)
+        x = _solve_dispatch(a, b, solver)
         loss = loss + jnp.sum(_loss_from_solution(x, b, conf_sum, lam))
         x_out = x_out.at[row_ids].set(x, mode="drop")
     else:
@@ -514,7 +393,7 @@ def _solve_side(y, class_arrays, chunk_sizes, n_rows, alpha, lam, solver,
         ):
             x_out, loss = _scan_class(
                 y, yty, row_ids, col_idx, values, mask, alpha, lam, x_out,
-                loss, solver, chunk_b, precision, hot_cls, y_hot, z, spmd,
+                loss, solver, chunk_b, precision, hot_cls, y_hot, z,
             )
     return x_out, loss
 
@@ -535,7 +414,6 @@ def train_epoch_impl(
     class_solve: bool = True,
     user_hot=None,  # (hot_ids, [per-class (w_a, w_b, conf_hot)]) or None
     item_hot=None,
-    spmd=None,  # (Mesh, axis name): run Pallas stages per-shard via shard_map
 ):
     """One FULL WALS epoch (both half-epochs) as a single device program.
 
@@ -549,11 +427,11 @@ def train_epoch_impl(
     del user_factors  # recomputed from scratch each epoch (reference zeroes)
     u_new, loss_u = _solve_side(
         item_factors, user_arrays, user_chunks, n_users, alpha, lam, solver,
-        precision, class_solve, user_hot, spmd,
+        precision, class_solve, user_hot,
     )
     v_new, loss_v = _solve_side(
         u_new, item_arrays, item_chunks, n_items, alpha, lam, solver,
-        precision, class_solve, item_hot, spmd,
+        precision, class_solve, item_hot,
     )
     return u_new, v_new, loss_u, loss_v
 
@@ -590,7 +468,6 @@ def train_epochs_impl(
     class_solve: bool = True,
     user_hot=None,
     item_hot=None,
-    spmd=None,
 ):
     """The WHOLE training run (``nepochs`` full epochs) as ONE device program.
 
@@ -608,11 +485,11 @@ def train_epochs_impl(
         _, v = carry
         u_new, _ = _solve_side(
             v, user_arrays, user_chunks, n_users, alpha, lam, solver,
-            precision, class_solve, user_hot, spmd,
+            precision, class_solve, user_hot,
         )
         v_new, loss_v = _solve_side(
             u_new, item_arrays, item_chunks, n_items, alpha, lam, solver,
-            precision, class_solve, item_hot, spmd,
+            precision, class_solve, item_hot,
         )
         return (u_new, v_new), loss_v
 
@@ -655,7 +532,6 @@ def width_class_solve_impl(
     hot_cls=None,
     y_hot=None,
     z=None,
-    spmd=None,
 ) -> Tuple[jax.Array, jax.Array]:
     """Solve one width class by lax.scan over fixed-size chunks.
 
@@ -666,7 +542,7 @@ def width_class_solve_impl(
     """
     return _scan_class(
         y, yty, row_ids, col_idx, values, mask, alpha, lam, x_out, loss_in,
-        solver, chunk_b, precision, hot_cls, y_hot, z, spmd,
+        solver, chunk_b, precision, hot_cls, y_hot, z,
     )
 
 
@@ -675,19 +551,6 @@ width_class_solve = functools.partial(
     static_argnames=("solver", "chunk_b", "precision"),
     donate_argnums=(8,),
 )(width_class_solve_impl)
-
-
-@functools.lru_cache(maxsize=64)
-def _fused_side_jit(precision: str, n_rows: int, spmd):
-    """Cached jit of the solver="fused" side program (spmd is a hashable
-    (Mesh, axis) tuple or None)."""
-    return jax.jit(
-        functools.partial(
-            _solve_side, solver="fused", precision=precision,
-            n_rows=n_rows, spmd=spmd,
-        ),
-        static_argnames=(),
-    )
 
 
 def iterate_side_classes(
@@ -703,24 +566,10 @@ def iterate_side_classes(
     x_init=None,
     precision: str = "highest",
     hot=None,
-    spmd=None,
 ) -> Tuple[jax.Array, float]:
     """One half-epoch over width classes (one dispatch per class)."""
     if solve_fn is None:
         solve_fn = width_class_solve
-    if solver == "fused":
-        # route through the fused-kernel side program (one jitted dispatch,
-        # cached per (precision, n_rows, spmd) so repeated half-epochs
-        # don't retrace)
-        fused = _fused_side_jit(precision, n_rows, spmd)
-        x_out, loss = fused(
-            y, classes, chunk_sizes,
-            alpha=jnp.asarray(alpha, dtype=dtype),
-            lam=jnp.asarray(lam, dtype=dtype),
-            hot=hot,
-            x_init=x_init,
-        )
-        return x_out, float(loss)
     yty = gramian(y)
     k = y.shape[1]
     # callers may pass a pre-placed accumulator (e.g. sharded zeros) so the
@@ -799,7 +648,7 @@ def compute_scores(
     """Dense score matrix: scores[t, i] = bias_i + <p_u(t), q_i>.
 
     Replaces the reference's per-test-user scoring loop
-    (qmf/Engine.cpp:73-96) with one MXU matmul over all test users x items.
+    (qmf/Engine.cpp:73-96) with one matmul over all test users x items.
     """
     u = user_factors if user_idx is None else user_factors[user_idx]
     scores = jnp.matmul(u, item_factors.T, precision=_PRECISION)

@@ -1,6 +1,6 @@
 """Device-side BPR: negative sampling, minibatch SGD step, eval loss.
 
-TPU-native replacement for the reference's Hogwild! SGD
+Device-side replacement for the reference's Hogwild! SGD
 (qmf/bpr/BPREngine.cpp:146-244, BPREngine-inl.h):
 
 - The reference samples one triplet at a time and applies lock-free racy
@@ -48,7 +48,7 @@ class PosSet(NamedTuple):
     """Per-user positive-item sets in CSR form for device membership tests.
 
     int32-safe at any scale (a flat user*n_items+item key would overflow
-    int32 — and TPU jax without x64 truncates int64 — already at
+    int32 — and jax without x64 truncates int64 — already at
     MovieLens-20M scale: 138k users x 27k items > 2^31).
     """
 
@@ -266,9 +266,9 @@ def _is_member(
 
     if unroll:
         # statically-unrolled search: straight-line gather chain, no While
-        # overhead per probe (historically crashed one TPU runtime build at
-        # ML-20M scale inside a fused epoch scan — kept opt-in until the
-        # crash is reproduced; see BPRConfig.unroll_membership)
+        # overhead per probe (crashed the accelerator runtime this code was
+        # first written for at ML-20M scale inside a fused epoch scan — kept
+        # opt-in until re-validated; see BPRConfig.unroll_membership)
         lohi = (lo, hi)
         for s in range(steps):
             lohi = body(s, lohi)
@@ -331,7 +331,7 @@ def sample_negatives(
 ) -> jax.Array:
     """Sample one negative item per row, rejecting the user's positives.
 
-    Fixed-round re-sampling (TPU-friendly; no data-dependent loop). Rows
+    Fixed-round re-sampling (no data-dependent loop). Rows
     still colliding after ``rounds`` rounds keep the last candidate —
     residual collision probability is (user_degree/n_items)^rounds.
     """
@@ -426,9 +426,9 @@ def _sgd_update_body(
     )
     # NOTE: merging the pos/neg item scatters into one concatenated 2B-row
     # scatter is algebraically equivalent and was tried — it deterministically
-    # kernel-faults this TPU runtime inside the epoch scan at MovieLens-20M
-    # scale (benchmarks/bpr_crash_bisect.py, "nobitmap" variant). Keep the
-    # two sequential B-row scatters.
+    # kernel-faulted the accelerator runtime this code was first written for,
+    # inside the epoch scan at MovieLens-20M scale. Keep the two sequential
+    # B-row scatters until that is re-validated.
     epu = e[:, None] * pu
     itf = params.item_factors.at[pos_items].add(
         lr * (epu - item_lambda * qi * wcol)
@@ -540,7 +540,8 @@ def _sgd_epoch_impl(
 
     PROGRAM-SHAPE WARNING (hard-won): sampling MUST stay inside the scan
     body. Hoisting it out — one wide presampling pass feeding the scan as a
-    4th xs array — reliably crashes this TPU runtime with a kernel fault at
+    4th xs array — crashed the runtime this code was first written for with
+    a kernel fault at
     MovieLens-20M scale, in every variant tried (fused or as a separate
     program, with or without shuffle, merged or split scatters), while this
     in-scan shape runs for hours. With the bitmap membership table the
@@ -614,8 +615,8 @@ def _feistel_bijection(key: jax.Array, m: int, b: int) -> jax.Array:
     stream length within 2**b of the real length (callers pick b ~ 16),
     instead of the up-to-2x padding a pure power-of-two bijection needs.
     Like _mix_bijection this is deliberately sort-free: sort-based
-    permutations fused with the sampler kernel-fault this TPU runtime
-    (benchmarks/bpr_crash_bisect.py).
+    permutations fused with the sampler kernel-faulted the runtime this code
+    was first written for.
     """
     n = m << b
     mask_b = (1 << b) - 1
@@ -883,7 +884,8 @@ def _sample_pack_grouped_body(
     under round r is the pure function _cand_hash(rk[r], f), so storing the
     chosen 2-bit round index per slot is enough for the scan body to
     reconstruct the item with VPU arithmetic (no membership gathers in the
-    scan — the known TPU-runtime fault shape). Encoding:
+    scan — the fault shape of the runtime this code was first written for).
+    Encoding:
 
         u_enc = (u << u_shift) | round_j bits (2 per negative) << 1 | valid
 
@@ -891,7 +893,7 @@ def _sample_pack_grouped_body(
     item-count ceiling (any int32 item id works), and cuts the shuffled
     stream from triplet-level to positive-level width. The (user, item)
     pairs arrive INTERLEAVED as one (n_stream, 2) array so the shuffle is
-    ONE row gather — random-gather cost on this hardware is per gathered
+    ONE row gather — random-gather cost is per gathered
     ROW, not per byte (benchmarks/bpr_presample_micro.py), and the legacy
     _sample_pack_impl uses the same layout.
     """
@@ -1259,9 +1261,9 @@ def _mix_bijection(key: jax.Array, n_pow2: int, kbits: int) -> jax.Array:
     xor-shift-right mixes — every step is invertible mod 2^k (odd multiplier:
     unit of Z/2^k; x ^ (x>>a): triangular linear map over GF(2)), so the
     composition is a permutation. Replaces jax.random.permutation for the
-    epoch shuffle: no sort, no extra program — this runtime kernel-faults
-    when a sort-based permutation is fused with the sampler or run over
-    multiple arrays (benchmarks/bpr_crash_bisect.py), while this form
+    epoch shuffle: no sort, no extra program — the runtime this code was
+    first written for kernel-faulted when a sort-based permutation was fused
+    with the sampler or run over multiple arrays, while this form
     compiles and runs clean. Quality: an LCG-grade mix, re-keyed per epoch;
     the reference's mt19937 shuffle (BPREngine.cpp:172-174) is likewise
     "only" pseudorandom — SGD needs decorrelation, not cryptography.
@@ -1302,9 +1304,9 @@ def _sample_pack_impl(
       stream (pos << 15 | neg) so the scan program keeps exactly THREE xs
       arrays.
 
-    PROGRAM-SHAPE WARNINGS (hard-won; benchmarks/bpr_crash_bisect.py):
-    this TPU runtime deterministically kernel-faults on (a) bitmap gathers
-    inside a scan body, (b) epoch scans with a 4th xs array, (c) merged
+    PROGRAM-SHAPE WARNINGS (from the runtime this code was first written
+    for, not yet re-validated on the GPU): it kernel-faulted on (a) bitmap
+    gathers inside a scan body, (b) epoch scans with a 4th xs array, (c) merged
     2B-row scatters inside the scan, (d) sort-based permutations fused
     with the sampler; and the compiler effectively hangs when the shuffle
     gather consumes the sampler's OUTPUT (shuffle-after-sampling). This
@@ -1484,8 +1486,8 @@ def sgd_epoch(
             [weights_flat, jnp.zeros(pad, weights_flat.dtype)]
         )
     # NOTE: bitmap_words deliberately NOT forwarded — bitmap membership
-    # gathers inside the lax.scan body deterministically kernel-fault this
-    # TPU runtime at ML-20M scale (benchmarks/bpr_crash_bisect.py, item a).
+    # gathers inside the lax.scan body kernel-faulted the runtime this code
+    # was first written for at ML-20M scale.
     # The in-scan sampler uses the known-stable CSR binary search; the
     # bitmap serves only the standalone presample/eval programs.
     return _sgd_epoch_impl(

@@ -2,7 +2,7 @@
 
 The host-side path (ops/packing.py) sorts 20M-element COO arrays in numpy
 and builds ~520 MB of padded (col_idx, values, mask) arrays before
-transferring them to the device (the TPU-native replacement for the
+transferring them to the device (the device-side replacement for the
 reference's ``groupSignals``, qmf/wals/WALSEngine.cpp:130-163). Through
 slow host<->device links that transfer dominates engine init.
 

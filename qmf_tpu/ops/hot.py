@@ -2,12 +2,11 @@
 
 Ratings data is power-law: the top-H hottest columns of a side cover a
 large share of the nonzeros (synthetic ml20m: top-1024 items cover 59% of
-entries, top-4096 cover 78%). The normal-equation build is bound by the
-per-row issue cost of random factor gathers (~3.4 ns/gathered row on this
-hardware regardless of row width — benchmarks/gather_micro.py), so the
-head's gathers are the single largest cost in a WALS epoch.
+entries, top-4096 cover 78%). The normal-equation build pays per gathered
+factor row (benchmarks/gather_micro.py), so the head's gathers are a large
+share of a WALS epoch's build.
 
-The split moves the head onto the MXU. At init, per side:
+The split moves the head onto the tensor cores. At init, per side:
 
 - entries whose column is in the top-H hot set are removed from the
   degree-packed stream (ops/packing.py, ops/device_pack.py pack the COLD
@@ -28,7 +27,7 @@ every build chunk adds
 
     A += (W_a @ Z).reshape(B, k, k),      b += W_b @ y_hot
 
-— two dense MXU GEMMs carrying the head's exact contribution (same math
+— two dense GEMMs carrying the head's exact contribution (same math
 as the reference's per-signal accumulation, qmf/wals/WALSEngine.cpp:
 266-310, just summed in a different order).
 """
@@ -42,12 +41,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# Cost-model constants for auto hot-width selection, measured on the
-# target chip (benchmarks/gather_micro.py, benchmarks/hot_micro.py):
-# per-gathered-row issue cost and effective bf16 GEMM throughput of the
-# (N, H) @ (H, k^2) hot matmul.
-_GATHER_NS_PER_ROW = 3.4
-_GEMM_FLOPS = 6.0e13
+# Cost-model constants for auto hot-width selection, measured on an NVIDIA
+# H100 80GB HBM3 at a 700 W power limit: the per-row cost of the bf16 row
+# gather (benchmarks/gather_micro.py "base": 0.23 ns/row at (14336, 64),
+# 0.10 at (11520, 256)) and the bf16 rate of the (N, H) @ (H, k^2) hot
+# GEMM at the ml20m user side (benchmarks/hot_micro.py gemm: 334-584
+# TFLOP/s for H = 1024-8192).
+_GATHER_NS_PER_ROW = 0.2
+_GEMM_FLOPS = 4.5e14
 _AUTO_CANDIDATES = (256, 512, 1024, 2048, 4096, 8192)
 # Cap W_a+W_b memory (bytes per element decided by the caller's store
 # dtype; the cap below assumes 2-byte bf16 storage).
@@ -81,8 +82,8 @@ def auto_hot_width(
 ) -> int:
     """Pick H minimizing modeled build time: cold gathers + hot GEMM.
 
-    cold(H) ~ (nnz - coverage(H)) / fill * 3.4 ns   (padded gather stream)
-    hot(H)  ~ n_build_rows * H * k^2 * 2 / 60 TFLOP/s
+    cold(H) ~ (nnz - coverage(H)) / fill * _GATHER_NS_PER_ROW
+    hot(H)  ~ n_build_rows * H * (k^2 + k) * 2 / _GEMM_FLOPS
 
     Returns 0 when no candidate beats the unsplit build (e.g. a flat,
     non-power-law degree distribution) or when W would blow the memory

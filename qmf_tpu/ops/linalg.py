@@ -1,12 +1,12 @@
-"""Batched small-matrix linear algebra tuned for TPU.
+"""Batched small-matrix linear algebra as unrolled XLA programs.
 
-XLA's stock ``cholesky``/``triangular_solve`` lower to While loops with one
-dynamic-sliced column step per iteration — measured at ~65% of the whole
-WALS epoch at MovieLens-20M scale. These replacements unroll the same
-textbook blocked algorithms statically (block size 8): the per-block scalar
+XLA's stock ``cholesky``/``triangular_solve`` may lower to loops with one
+dynamic-sliced column step per iteration. These replacements unroll the
+same textbook blocked algorithms statically: the per-block scalar
 recurrences become straight-line vector ops over the batch dimension, and
-the trailing updates become batched matmuls on the MXU. Measured ~3x faster
-than the XLA kernels at (16384, 64, 64) with identical accuracy.
+the trailing updates become batched matmuls. ``solve_spd`` is the WALS
+solve on the CPU and for float64 runs; on the GPU XLA's cuSOLVER path
+(``als_ops._solve_spd_xla``) measured slightly faster (PERF.md).
 
 Works for any k: matrices are padded to a block multiple with an identity
 diagonal (padding rows solve to zero and are sliced off).
@@ -19,10 +19,11 @@ import functools
 import jax
 import jax.numpy as jnp
 
-# Cholesky block size. Swept on v5e at the WALS hot shape (141k x 64 x 64
-# stacked normal equations, benchmarks/stage_decomp.py): 8 -> 130 ms,
-# 16 -> 98 ms, 32 -> 321 ms. 16 balances the unrolled diagonal-block chain
-# (O(nb^2) ops) against the number of panel/Schur stages (k/nb).
+# Cholesky block size. Swept on an NVIDIA H100 80GB HBM3 (700 W) at the
+# ml20m user side's stacked normal equations (138,496 x 64 x 64,
+# benchmarks/solver_micro.py): 8 -> 26.02 ms, 16 -> 17.97 ms, 32 -> 18.20 ms.
+# 16 balances the unrolled diagonal-block chain (O(nb^2) ops) against the
+# number of panel/Schur stages (k/nb).
 _BLOCK = 16
 _PREC = jax.lax.Precision.HIGHEST
 
@@ -108,7 +109,7 @@ def cholesky_blocked(a: jax.Array, block: int = _BLOCK) -> jax.Array:
         if j + block < k:
             pan = a[:, j + block :, j : j + block]
             x = _panel_solve(pan, ljj)
-            # trailing Schur update on the MXU
+            # trailing Schur update on the tensor cores
             a22 = a[:, j + block :, j + block :] - jnp.einsum(
                 "bik,bjk->bij", x, x, precision=_PREC
             )
@@ -241,7 +242,7 @@ def solve_spd_matmul(a: jax.Array, b: jax.Array, block: int = _BLOCK):
 
     The serial chain shrinks from ~3k elementwise HLO ops to ~700 (the
     unrolled nb x nb diagonal factor/inverse chains plus one op per block
-    pair), which matters because the chain is op-latency-bound on TPU, not
+    pair), which matters because the chain is op-latency-bound, not
     FLOP-bound. Inverting the (well-conditioned) nb x nb diagonal blocks is
     the standard blocked-LAPACK TRTRI trick; accuracy matches the
     division-based substitutions to ~1 ulp on SPD systems.
@@ -300,10 +301,10 @@ def solve_spd_matmul(a: jax.Array, b: jax.Array, block: int = _BLOCK):
 def inv_spd(a: jax.Array, block: int = _BLOCK) -> jax.Array:
     """Batched SPD inverse by recursive 2x2 Schur-complement blocking.
 
-    All combining steps are batched matmuls (MXU work); the only
+    All combining steps are batched matmuls (matmul work); the only
     elementwise chains are the (B, block, block) base-case inversions.
     Total chain depth is ~10x shorter than the blocked-Cholesky
-    factor+solve, which matters because batched small-matrix chains on TPU
+    factor+solve, which matters because batched small-matrix chains
     are op-latency-bound, not FLOP-bound (each unrolled step is a separate
     HLO op over the whole batch).
 

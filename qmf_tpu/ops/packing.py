@@ -126,9 +126,8 @@ def coalesce_widths(
 ) -> np.ndarray:
     """Bound the number of width classes by merging sparse ones upward.
 
-    Every distinct width is a compiled program shape (and through a remote
-    compile service, ~30-140 s of warmup each — BENCH_r03 measured 665 s of
-    ml20m warmup at 43 classes). Two rules, both merging a class into the
+    Every distinct width is a compiled program shape, so the class count
+    bounds warm-up (compile) time. Two rules, both merging a class into the
     NEXT LARGER width (rows may always pad wider, never narrower):
 
     - any class covering < ``min_nnz_frac`` of the side's nnz merges

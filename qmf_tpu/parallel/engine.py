@@ -75,16 +75,6 @@ class ShardedWALSEngine(WALSEngine):
         self._train_epoch_fn = make_sharded_train_epoch(self.mesh, self.axis_name)
         self._train_epochs_fn = make_sharded_train_epochs(self.mesh, self.axis_name)
 
-    def _auto_solver(self) -> str:
-        # pallas_call is not GSPMD-partitionable, but the batched solves
-        # have no cross-row dependency, so the sharded programs run the
-        # Pallas kernel per-shard via shard_map (als_ops._solve_dispatch
-        # with spmd set). Same resolution as single-chip: Pallas on f32
-        # accelerators, blocked XLA Cholesky on CPU/f64.
-        if self.dtype == jnp.float32 and jax.default_backend() != "cpu":
-            return "pallas"
-        return "cholesky"
-
     def _use_device_pack(self) -> bool:
         # device-side packing builds global (sort + padded gather) programs;
         # with multiple processes the raw COO would itself need a global
@@ -95,7 +85,7 @@ class ShardedWALSEngine(WALSEngine):
 
     def _shard_classes(self, arrays):
         """Re-place per-class (row_ids, col_idx, values, mask) with the row
-        axis sharded over the mesh (device-to-device over ICI when the
+        axis sharded over the mesh (device-to-device over NVLink when the
         source is the device packer's output)."""
         row = NamedSharding(self.mesh, P(self.axis_name))
         row2 = NamedSharding(self.mesh, P(self.axis_name, None))

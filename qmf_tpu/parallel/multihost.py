@@ -1,11 +1,12 @@
-"""Multi-host (DCN) initialization for sharded training.
+"""Multi-host initialization for sharded training.
 
 The reference's multi-machine story is its scheduler/labor TCP star
 (reference distributed/): the scheduler ships the dataset and factors to
-every labor over sockets. The TPU-native story: every host runs the same
+every labor over sockets. Here: every host runs the same
 SPMD program; hosts rendezvous through the JAX coordination service over
-DCN, each host feeds its local accelerators, and cross-chip traffic rides
-ICI. This module is the thin host-side bootstrap for that.
+the host network, each host feeds its local cards, and cross-card traffic
+rides NVLink within a host. This module is the thin host-side bootstrap for
+that.
 
 Typical use (one command per host, e.g. launched by the scheduler's
 labor agents):

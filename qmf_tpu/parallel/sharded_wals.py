@@ -1,6 +1,6 @@
 """SPMD sharded WALS over a device mesh.
 
-This module is the TPU-native answer to the reference's entire distributed
+This module is the SPMD answer to the reference's entire distributed
 layer (reference distributed/: Scheduler + Labor + hand-rolled TCP wire
 protocol). The mapping (SURVEY.md section 2.6 P4, 5.8):
 
@@ -10,7 +10,7 @@ protocol). The mapping (SURVEY.md section 2.6 P4, 5.8):
   replicates the whole dataset on every labor).
 - kPushFixed (fixed-factor broadcast each half-epoch, Scheduler.cpp:268-326)
   -> factor matrices live ROW-SHARDED between epochs; when one side becomes
-  the fixed side of a solve, GSPMD inserts one all-gather over ICI.
+  the fixed side of a solve, GSPMD inserts one all-gather over NVLink.
 - kCalc / kCalcRsp (dynamic 10k-row bucket scatter + row gather-back,
   RunOneTask.cpp:160-243) -> static row sharding of each degree-bucket;
   solves run where the rows live and the solved factors STAY sharded (the
@@ -18,7 +18,7 @@ protocol). The mapping (SURVEY.md section 2.6 P4, 5.8):
   near-identical cost, static sharding is load-balanced by construction —
   no dynamic work stealing needed.
 - YtY Gramian: computable from a row-sharded Y as per-shard k x k matmuls
-  + one psum over ICI (sharded_gramian below; replaces each labor's full
+  + one psum over NVLink (sharded_gramian below; replaces each labor's full
   OpenMP computeXtX over the whole fixed matrix, Labor.cpp:297-307).
 
 The per-bucket compute itself is the SAME fused program as single-chip
@@ -32,7 +32,6 @@ module is agnostic to whether mesh devices live on one host or many.
 
 from __future__ import annotations
 
-import functools
 from typing import List, Tuple
 
 import jax
@@ -44,7 +43,7 @@ from qmf_tpu.ops.packing import Bucket
 
 
 def sharded_gramian(y: jax.Array, mesh: Mesh, axis_name: str = "d") -> jax.Array:
-    """YtY with the item axis sharded: local k x k matmul + psum over ICI.
+    """YtY with the item axis sharded: local k x k matmul + psum over NVLink.
 
     Rows are zero-padded up to a mesh multiple (zero rows add nothing to
     YtY), so any factor-matrix height shards evenly.
@@ -104,9 +103,7 @@ def make_sharded_width_class_solve(mesh: Mesh, axis_name: str = "d"):
         NamedSharding(mesh, P()),
     )
     return jax.jit(
-        functools.partial(
-            als_ops.width_class_solve_impl, spmd=(mesh, axis_name)
-        ),
+        als_ops.width_class_solve_impl,
         static_argnames=("solver", "chunk_b", "precision"),
         donate_argnums=(8,),
         out_shardings=out_shardings,
@@ -125,7 +122,7 @@ def make_sharded_train_epoch(mesh: Mesh, axis_name: str = "d"):
     row = NamedSharding(mesh, P(axis_name, None))
     rep = NamedSharding(mesh, P())
     return jax.jit(
-        functools.partial(als_ops.train_epoch_impl, spmd=(mesh, axis_name)),
+        als_ops.train_epoch_impl,
         static_argnames=(
             "solver",
             "precision",
@@ -148,7 +145,7 @@ def make_sharded_train_epochs(mesh: Mesh, axis_name: str = "d"):
     row = NamedSharding(mesh, P(axis_name, None))
     rep = NamedSharding(mesh, P())
     return jax.jit(
-        functools.partial(als_ops.train_epochs_impl, spmd=(mesh, axis_name)),
+        als_ops.train_epochs_impl,
         static_argnames=(
             "solver",
             "precision",
@@ -205,5 +202,4 @@ def iterate_side_sharded(
         x_init=x_init,
         precision=precision,
         hot=hot,
-        spmd=(mesh, axis_name),
     )

@@ -2,7 +2,7 @@
 
 The reference has no mid-training checkpointing (SURVEY.md section 5.4): its
 fault-tolerance story is per-bucket work reassignment inside an epoch
-(reference RunOneTask.cpp:177-240). In the TPU design an epoch is a single
+(reference RunOneTask.cpp:177-240). In this design an epoch is a single
 device program, so the recovery unit becomes the epoch: the model state is
 snapshotted after each epoch and a restarted run resumes from the last
 complete snapshot — equivalent end state, simpler machinery. What each

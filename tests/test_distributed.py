@@ -438,7 +438,7 @@ class TestDistributedGolden:
 @pytest.mark.slow
 class TestMultiProcessTraining:
     def test_two_process_run_matches_single_process(self, tmp_path):
-        """VERDICT item 4: a labor receiving task_start joins the
+        """A labor receiving task_start joins the
         jax.distributed rendezvous and co-executes the SPMD program.
 
         Scheduler worker (process 0, 4 virtual CPU devices) + 1 labor worker
@@ -530,13 +530,13 @@ class TestMultiProcessTraining:
     def test_worker_killed_mid_run_is_retried_from_checkpoint(
         self, tmp_path, monkeypatch
     ):
-        """VERDICT r3 items 2+5: SIGKILL a labor's worker mid-run; the
+        """SIGKILL a labor's worker mid-run; the
         scheduler must (a) have shown live mid-run progress (epoch > 0) in
         status, (b) detect the broken rendezvous, kill its own worker, and
         (c) retry the task, resuming from the shared per-epoch checkpoint —
         final factors bit-equal (f64) to an uninterrupted run.
 
-        This is the TPU-era equivalent of the reference's fault-tolerance
+        This is the SPMD-era equivalent of the reference's fault-tolerance
         story (dead labor -> buckets reassigned, epoch completes,
         RunOneTask.cpp:177-240)."""
         import os
@@ -661,7 +661,7 @@ class TestMultiProcessTraining:
             np.testing.assert_array_equal(fa.factors, fb.factors)
 
     def test_new_labor_absorbed_at_failure_retry(self, tmp_path, monkeypatch):
-        """VERDICT r4 item 6: the scheduler docstring's elasticity claim —
+        """The scheduler docstring's elasticity claim —
         "new labors ARE absorbed at every failure retry" — exercised with a
         labor that attaches only AFTER the first attempt started. The retry
         must re-run the quorum over the enlarged labor set and include the

@@ -1,7 +1,7 @@
 """Hot/cold split build tests (ops/hot.py).
 
 The split moves the contribution of the H hottest fixed-side columns from
-per-entry factor-row gathers onto dense MXU GEMMs against static weight
+per-entry factor-row gathers onto dense GEMMs against static weight
 matrices. It must be mathematically identical to the unsplit build (the
 reference accumulates the same per-signal terms in a different order,
 qmf/wals/WALSEngine.cpp:266-310), so the oracle here is the unsplit engine

@@ -112,7 +112,7 @@ class TestShardedEngineParity:
         """After optimize() (fused whole-epoch path), both factor matrices
         must carry the explicit row-sharded layout over all 8 devices — the
         layout the next epoch's all-gather analysis and the multi-host data
-        path depend on (VERDICT r1 weak item 6)."""
+        path depend on."""
         from jax.sharding import NamedSharding, PartitionSpec as P
 
         ds = _dataset(seed=1)
@@ -135,7 +135,7 @@ class TestShardedEngineParity:
     def test_fused_run_matches_per_epoch(self, n_dev):
         """Whole-run fusion (one lax.scan program for all epochs) must be
         f64-identical to per-epoch fused dispatches on the same mesh, and
-        leave the factors row-sharded (VERDICT r2 weak item 7)."""
+        leave the factors row-sharded."""
         from jax.sharding import NamedSharding, PartitionSpec as P
 
         ds = _dataset(seed=5)
